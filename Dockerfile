@@ -1,7 +1,8 @@
 # longqc_tpu container recipe (the reference ships a miniconda-based
 # Dockerfile building minimap2-coverage, /root/reference/Dockerfile:1;
-# here the compute path is JAX/TPU and the only native piece is the
-# FASTA/FASTQ reader).
+# here the compute path is JAX on an NVIDIA GPU; the native pieces are
+# the FASTA/FASTQ reader and the chain-DP CUDA kernels, which build at
+# first use on the GPU host from native/chain_ring.cu).
 FROM python:3.12-slim
 
 LABEL software="longqc_tpu"
@@ -16,7 +17,8 @@ COPY pyproject.toml README.md ./
 COPY longqc_tpu ./longqc_tpu
 COPY native ./native
 
-# libtpu wheel for real TPU hosts; plain jax runs the CPU backend
+# plain jax runs the CPU backend; a GPU host adds jax's CUDA plugin and
+# the CUDA toolkit (nvcc)
 RUN pip install --no-cache-dir .
 RUN make -C native
 

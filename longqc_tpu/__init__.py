@@ -1,9 +1,10 @@
-"""longqc_tpu — a TPU-native long-read quality-control engine.
+"""longqc_tpu — long-read quality control as JAX device programs.
 
 A from-scratch reimplementation of the capabilities of LongQC
-(reference: yfukasawa/LongQC) designed for TPU hardware: the
-minimap2-coverage overlap pipeline (minimizer sketching, seed chaining,
-coverage accounting) runs as batched JAX/Pallas device programs over
+(reference: yfukasawa/LongQC) for an accelerator (an NVIDIA GPU; the
+CPU backend serves the tests): the minimap2-coverage overlap pipeline
+(minimizer sketching, seed chaining, coverage accounting) runs as
+batched JAX device programs, plus CUDA kernels for the chain DP, over
 packed 2-bit read tiles, scaling data-parallel over a `jax.sharding.Mesh`;
 statistics (GC, quality, low-complexity masking, length/coverage
 distribution fits) are batched array ops; reports (TSV/JSON/HTML/plots)
@@ -29,15 +30,12 @@ import jax
 # Enable x64 so uint64 is available on all backends.
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: the attached TPU runtime compiles
-# remotely (60-400 s per program), so executables are cached on disk and
-# reused across processes/runs. Disable with LONGQC_JAX_CACHE=off.
-_cache = _os.environ.get("LONGQC_JAX_CACHE",
-                         _os.path.join(_os.path.dirname(__file__),
-                                       _os.pardir, ".cache", "jaxcomp"))
-if _cache != "off":
+# Persistent compilation cache: JAX_COMPILATION_CACHE_DIR when set (JAX
+# reads it itself), otherwise a fixed directory inside the checkout.
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _cache = _os.path.abspath(_os.path.join(
+        _os.path.dirname(__file__), _os.pardir, ".cache", "jaxcomp"))
     _os.makedirs(_cache, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", _cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from longqc_tpu._version import __version__  # noqa: E402,F401

@@ -108,7 +108,7 @@ def _parse_size(s):
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="longqc_tpu",
-        description="TPU-native quality control for long-read sequence data.")
+        description="Quality control for long-read sequence data.")
     parser.add_argument("-v", "--version", action="version",
                         version="%(prog)s " + __version__)
     sub = parser.add_subparsers()

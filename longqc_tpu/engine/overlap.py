@@ -1,4 +1,4 @@
-"""Device-path overlap engine: batched chain DP on TPU.
+"""Device-path overlap entry point, and the batched-chainer path.
 
 Same pipeline as engine/overlap_host.overlap_run, with chaining done by
 the resumable batched device kernel (ops/chain.py): query anchor sets
@@ -19,95 +19,21 @@ from longqc_tpu.config import OverlapConfig
 from longqc_tpu.engine import overlap_host as oh
 from longqc_tpu.ops.chain import (backtrack_chains, chain_dp_batch,
                                   gap_penalty_table, make_carry)
-from longqc_tpu.ops.chain_pallas import (chain_dp_batch_pallas,
-                                         make_carry_pallas, penalty_limbs)
 
 logger = getLogger(__name__)
 
-_GROUP_Q = 64       # device batch rows per DP call (lax.scan kernel)
-_GROUP_Q_PALLAS = 128  # one full lane width (fused Pallas kernel)
+_GROUP_Q = 64       # device batch rows per DP call
 _CHUNK_A = 2048     # anchors per chunk (single compiled shape)
-
-
-def _use_pallas():
-    """Fused Pallas kernel on real TPU; lax.scan elsewhere (CPU tests,
-    GPU and other backends where pltpu primitives would fail to lower).
-    Override with LONGQC_CHAIN_KERNEL=pallas|scan."""
-    env = os.environ.get("LONGQC_CHAIN_KERNEL", "")
-    if env in ("pallas", "scan"):
-        return env == "pallas"
-    import jax
-    return jax.default_backend() == "tpu"
 
 
 class DeviceChainer:
     """Batched resumable chain-DP dispatcher with host fallback, usable
     as the `chain_many` hook of overlap_run."""
 
-    def __init__(self, J=64, use_pallas=None):
+    def __init__(self, J=64):
         self.J = J
-        self.use_pallas = (_use_pallas() if use_pallas is None
-                           else use_pallas)
-        self.group_q = _GROUP_Q_PALLAS if self.use_pallas else _GROUP_Q
-        # forced-pallas on a CPU backend runs the kernel interpreter
-        # (CI/differential testing without a TPU)
-        import jax
-        self.interpret = (self.use_pallas
-                          and jax.default_backend() == "cpu")
         self.n_host_fallback = 0
         self.n_device = 0
-
-    def _run_group_pallas(self, sel, anchor_sets, m, results):
-        Q, A = _GROUP_Q_PALLAS, _CHUNK_A
-        ns = np.array([len(anchor_sets[i][0]) for i in sel], np.int64)
-        n_max = int(ns.max())
-        nb = np.zeros((Q,), np.int32)
-        nb[:len(sel)] = ns
-        limbs = np.zeros((5, Q), np.int32)
-        rbad = np.zeros((1, Q), np.int32)
-        split = []
-        for r, i in enumerate(sel):
-            ax, ay = anchor_sets[i]
-            hi = (ax >> np.uint64(32)).astype(np.uint32).view(np.int32)
-            lo = (ax & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
-            qq = (ay & np.uint64(0xFFFFFFFF)).astype(np.int32)
-            sp = ((ay >> np.uint64(32)) & np.uint64(0xFF)).astype(np.int32)
-            split.append((hi, lo, qq, sp))
-            lb = penalty_limbs(float(np.float32(sp.sum() / len(sp))), m.bw)
-            if lb is None:
-                rbad[0, r] = 1
-            else:
-                limbs[:, r] = lb
-
-        carry = make_carry_pallas(Q, self.J)
-        fs = np.zeros((Q, n_max), np.int32)
-        ps = np.full((Q, n_max), -1, np.int32)
-        vs = np.zeros((Q, n_max), np.int32)
-        flags = np.zeros((Q,), bool)
-        for c0 in range(0, n_max, A):
-            axh = np.zeros((Q, A), np.int32)
-            axl = np.zeros((Q, A), np.int32)
-            aqb = np.zeros((Q, A), np.int32)
-            asb = np.zeros((Q, A), np.int32)
-            for r, _ in enumerate(sel):
-                hi, lo, qq, sp = split[r]
-                seg = slice(c0, min(c0 + A, len(hi)))
-                ln = seg.stop - seg.start
-                if ln > 0:
-                    axh[r, :ln] = hi[seg]
-                    axl[r, :ln] = lo[seg]
-                    aqb[r, :ln] = qq[seg]
-                    asb[r, :ln] = sp[seg]
-            f, p, v, fl, carry = chain_dp_batch_pallas(
-                axh, axl, aqb, asb, nb, limbs, rbad, carry, np.int32(c0),
-                J=self.J, max_dist=m.max_gap, bw=m.bw,
-                max_skip=m.max_chain_skip, interpret=self.interpret)
-            hi_end = min(c0 + A, n_max)
-            fs[:, c0:hi_end] = f[:, :hi_end - c0]
-            ps[:, c0:hi_end] = p[:, :hi_end - c0]
-            vs[:, c0:hi_end] = v[:, :hi_end - c0]
-            flags |= fl
-        self._collect(sel, anchor_sets, m, results, fs, ps, vs, flags)
 
     def _collect(self, sel, anchor_sets, m, results, fs, ps, vs, flags):
         for r, i in enumerate(sel):
@@ -124,8 +50,6 @@ class DeviceChainer:
                     fs[r], ps[r], vs[r], n, m.min_cnt, m.min_chain_score)
 
     def _run_group(self, sel, anchor_sets, m, results):
-        if self.use_pallas:
-            return self._run_group_pallas(sel, anchor_sets, m, results)
         Q, A = _GROUP_Q, _CHUNK_A
         ns = np.array([len(anchor_sets[i][0]) for i in sel], np.int64)
         n_max = int(ns.max())
@@ -184,7 +108,7 @@ class DeviceChainer:
         # sort by anchor count: groups stay homogeneous, chunk loops
         # don't run long tails for short rows
         nonempty.sort(key=lambda i: len(anchor_sets[i][0]))
-        gq = self.group_q
+        gq = _GROUP_Q
         for off in range(0, len(nonempty), gq):
             self._run_group(nonempty[off:off + gq], anchor_sets, m,
                             results)

@@ -2,7 +2,7 @@
 
 This module is the executable *spec* of the engine: it reproduces the
 reference minimap2-coverage semantics exactly and is validated against
-the C binary in tests. The TPU path (engine/overlap.py) must match it
+the C binary in tests. The device path (engine/overlap.py) must match it
 bit-for-bit; the host path also serves as a fallback.
 
 Pipeline per index part (cf. SURVEY.md §3.1-§3.2):
@@ -113,9 +113,8 @@ class MinimizerIndex:
 
 
 def _len_bucket(n):
-    """Round up to a power of four (min 4096): compile cost dominates on
-    the remote-compiled TPU target, so very few distinct shapes beat
-    tighter padding."""
+    """Round up to a power of four (min 4096): few distinct shapes keep
+    the number of compiled programs small."""
     b = 4096
     while b < n:
         b *= 4

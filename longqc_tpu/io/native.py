@@ -1,7 +1,9 @@
 """ctypes bindings for the native FASTA/FASTQ reader.
 
-Builds native/libfastx_native.so on demand (g++ + zlib); falls back to
-the pure-Python reader when the toolchain is unavailable. The native
+Builds native/libfastx_native.so on demand (g++ + zlib), again whenever
+the source is newer than the library or the library fails to load (so
+a library built elsewhere is never used); falls back to the
+pure-Python reader when the toolchain is unavailable. The native
 reader replaces the reference's kseq-based C readers in the data-loader
 role: record lexing runs in C++, while chunk-boundary accounting stays
 in Python for bit-compatibility with the reference's chunking.
@@ -26,16 +28,17 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO):
+    lib = None
+    for force in (False, True):
         try:
-            subprocess.run(["make", "-s"], cwd=_NATIVE_DIR, check=True,
+            subprocess.run(["make", "-s"] + (["-B"] if force else []),
+                           cwd=_NATIVE_DIR, check=True,
                            capture_output=True, timeout=120)
+            lib = ctypes.CDLL(_SO)
+            break
         except Exception as e:  # pragma: no cover
             logger.info("native fastx reader unavailable (%s)", e)
-            return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:  # pragma: no cover
+    if lib is None:  # pragma: no cover
         return None
     lib.lqf_open.restype = ctypes.c_void_p
     lib.lqf_open.argtypes = [ctypes.c_char_p]

@@ -8,7 +8,8 @@ max_skip pruning heuristic, reformulated for a vector machine:
   batch of query rows.
 - The C gap penalty `(int)(dd * .01 * avg_qspan) + (ilog2(dd)>>1)`
   is exactly double-rounded via a per-query host-precomputed table
-  indexed by dd (dd <= bw, so the table is tiny) — TPU has no f64.
+  indexed by dd (dd <= bw, so the table is tiny), with no f64 on the
+  device.
 - max_skip pruning: the C breaks the descent after >max_skip "skip
   events" (non-improving visits of marked anchors, where marks t[p[j]]
   are set by already-visited anchors). Skip counting is a 0-clamped
@@ -71,7 +72,7 @@ def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry,
     i0:     absolute index of this chunk's first anchor (int32 scalar)
 
     The 64-bit anchor key is split so the scan body runs entirely in
-    int32 lanes (u64 is emulated on TPU).
+    int32 lanes.
 
     Returns (f, p, v): (Q, A) int32 (p = absolute predecessor index,
     -1 none), flags: (Q,) bool, and the carry for the next chunk.
@@ -177,10 +178,6 @@ def chain_dp_batch(ax_hi, ax_lo, aq, aspan, n_anchors, pen_tab, carry,
                jnp.where(row_on, v_i, 0))
         return carry, out
 
-    # NB: measured on the attached runtime, the scan cost is per-ANCHOR
-    # body compute (~constant per anchor for fixed Q), not loop-iteration
-    # overhead — unrolling multiple anchors per step multiplied compile
-    # time without improving runtime. Wider Q batches amortize better.
     carry = tuple(jnp.asarray(c) for c in carry)
     carry, (f, p, v) = jax.lax.scan(
         one_anchor, carry, i0 + jnp.arange(A, dtype=jnp.int32))

@@ -24,8 +24,7 @@ def gc_count_batch(codes, lengths):
 
 
 def read_gc_frac_batch(codes, lengths):
-    """(gc_counts, gc_fractions): device counts, host f64 division
-    (TPU v5e has no native f64)."""
+    """(gc_counts, gc_fractions): device counts, host f64 division."""
     n_gc = np.asarray(gc_count_batch(codes, lengths))
     frac = n_gc / np.maximum(np.asarray(lengths, dtype=np.float64), 1.0)
     return n_gc, frac
@@ -49,7 +48,9 @@ def chunk_gc_fracs(codes_row, length, chunk_size, samp_rate, rng):
     for i in idx:
         if i + chunk_size - 1 > length:
             break
-        cgc = int(cum[i + chunk_size] - cum[i])
+        # i == length - chunk_size + 1 passes the reference's check;
+        # its slice seq[i:i + chunk_size] then stops at the read's end
+        cgc = int(cum[min(i + chunk_size, length)] - cum[i])
         fracs.append(cgc / chunk_size)
         gc_tot += cgc
         tot += chunk_size

@@ -62,9 +62,9 @@ def _length_mask(lengths, lmax):
 def qual_hist_batch(quals, lengths):
     """Per-read phred histogram (N, 127) int32 over padded quality tiles.
 
-    TPU v5e has no native f64, so the device computes exact integer
-    counts per phred value; the f64 table contraction happens on host
-    (mean_q_from_hist), keeping meanQ double-exact.
+    The device computes exact integer counts per phred value; the f64
+    table contraction happens on host (mean_q_from_hist), keeping meanQ
+    double-exact.
     """
     mask = _length_mask(lengths, quals.shape[1])
     q = jnp.clip(quals.astype(jnp.int32), 0, 126)

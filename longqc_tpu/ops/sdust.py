@@ -1,6 +1,6 @@
 """Symmetric DUST low-complexity masking (cf. sdust.c, Morgulis 2006).
 
-Two-tier TPU design:
+Two-tier design:
   1. A vectorized device *screen* computes, per position, the windowed
      triplet counts and flags any position where the masking recursion
      could possibly trigger:  rw*10 > len*T  (with len >= the shrunk L

@@ -40,8 +40,7 @@ def hash64(key, mask):
     Dtype-generic: for 2k <= 30 the masked arithmetic wraps identically
     in uint32 lanes (every step re-masks, and mod-2^32 wrapping
     preserves the masked value), so the main presets (k = 12, 15) avoid
-    u64 entirely — u64 compute/transfer is pathologically slow on the
-    attached TPU runtime."""
+    u64 entirely."""
     dt = key.dtype.type
     key = (~key + (key << dt(21))) & mask
     key = key ^ (key >> dt(24))
@@ -56,8 +55,7 @@ def hash64(key, mask):
 def _shift_left(a, d, fill):
     """a'[..., i] = a[..., i+d], filling the right edge: a pure
     pad+slice. Replaces clipped-index take_along_axis gathers for
-    constant-offset lookups — the general gather is ~10x slower on the
-    attached TPU backend, and rules B/C only ever look ahead by a
+    constant-offset lookups: rules B/C only ever look ahead by a
     static offset (every out-of-range lane is masked by the caller)."""
     if d == 0:
         return a
@@ -127,8 +125,7 @@ def _sketch_core(codes, lengths, *, w, k, positions=None, spans=None,
     B, L = codes.shape
     # u32 fast path: for 2k <= 30 (all main presets) hash values stay
     # below the u32 sentinel and every masked step wraps identically,
-    # so no u64 touches the device (u64 is pathologically slow on the
-    # attached TPU runtime). HPC (varying spans) keeps the packed-u64
+    # so no u64 touches the device. HPC (varying spans) keeps the packed-u64
     # path; it only ever runs on the 5000-read sample.
     use_u32 = (2 * k <= 30) and (spans is None)
     U = jnp.uint32 if use_u32 else jnp.uint64
@@ -142,8 +139,8 @@ def _sketch_core(codes, lengths, *, w, k, positions=None, spans=None,
 
     # --- k-mers roll over the valid-base subsequence (C registers skip
     # ambiguous bases and are never cleared): compact valid bases.
-    # TPU scatters serialize, so compactions use one argsort (stable,
-    # keys place valid positions first in order) + gathers.
+    # Compactions use one argsort (stable, keys place valid positions
+    # first in order) + gathers.
     vcount = jnp.cumsum(valid, axis=1)          # 1-based rank among valid
     n_valid = vcount[:, -1]
     pos_of_vrank = jnp.argsort(

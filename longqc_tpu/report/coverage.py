@@ -16,12 +16,9 @@ import pandas as pd
 import scipy.stats as st
 from scipy.signal import argrelmax
 
-import matplotlib
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
 from longqc_tpu.ops.distfit import (fit_gmm, fit_norm_lognorm,
                                     gmm_score_samples)
+from longqc_tpu.report.png import Figure
 
 logger = getLogger(__name__)
 
@@ -249,27 +246,26 @@ class CoverageAnalytics:
 
     def plot_coverage_dist(self, fp=None):
         if self.min_lambda and self.max_lambda:
-            plt.figure(figsize=(12, 5))
-            plt.subplot(1, 2, 1)
-            plt.grid(True)
+            fig = Figure(width=1200, height=500, ncols=2)
+            ax = fig.axes[0]
+            ax.grid(True)
             pois_x = np.arange(int(self.mean_main
                                    + 4 * np.sqrt(self.cov_main)) + 1)
-            plt.xlim(0, 50)
-            plt.plot(pois_x, st.poisson(self.min_lambda).pmf(pois_x),
-                     label="Fitted Model by Poisson model (%.3f)"
-                     % self.min_lambda)
-            plt.plot(pois_x, st.poisson(self.max_lambda).pmf(pois_x),
-                     label="Fitted Model by Poisson model (%.3f)"
-                     % self.max_lambda)
-            plt.xlabel("Per read coverage")
-            plt.ylabel("Probability density")
-            self._cov_hist()
-            plt.legend(bbox_to_anchor=(1, 1), loc="upper right",
-                       borderaxespad=1)
-            plt.subplot(1, 2, 2)
-            plt.grid(True)
+            ax.plot(pois_x, st.poisson(self.min_lambda).pmf(pois_x),
+                    label="Fitted Model by Poisson model (%.3f)"
+                    % self.min_lambda)
+            ax.plot(pois_x, st.poisson(self.max_lambda).pmf(pois_x),
+                    label="Fitted Model by Poisson model (%.3f)"
+                    % self.max_lambda)
+            ax.set_xlim(0, 50)
+            ax.xlabel = "Per read coverage"
+            ax.ylabel = "Probability density"
+            self._cov_hist(ax)
+            ax = fig.axes[1]
         else:
-            plt.grid(True)
+            fig = Figure()
+            ax = fig.axes[0]
+        ax.grid(True)
 
         gmm_x = np.linspace(0, self.mean_main
                             + 10 * np.sqrt(self.cov_main), 5000)
@@ -278,37 +274,31 @@ class CoverageAnalytics:
             mix_y = (w[0] * st.norm(mus[0], sigmas[0]).pdf(gmm_x)
                      + w[1] * st.lognorm.pdf(gmm_x, sigmas[1], loc=0,
                                              scale=np.exp(mus[1])))
-            plt.plot(gmm_x, mix_y,
-                     label="Fitted by Lognormal and gaussian mixture model")
-            plt.xlim(0, gmm_x[-1])
-            plt.legend(bbox_to_anchor=(1, 1), loc="upper right",
-                       borderaxespad=1)
+            ax.plot(gmm_x, mix_y,
+                    label="Fitted by Lognormal and gaussian mixture model")
+            ax.set_xlim(0, gmm_x[-1])
         elif self.model is None:
-            plt.gcf().text(0.30, 0.5, "Caution: coverage estimation was "
-                           "skipped due to insufficient amount of data.",
-                           backgroundcolor="yellow")
+            fig.note(0.30, 0.5, "Caution: coverage estimation was "
+                     "skipped due to insufficient amount of data.")
         else:
             weights, means, covs = self.model
             gmm_y = np.exp(gmm_score_samples(gmm_x, weights, means, covs))
-            plt.plot(gmm_x, gmm_y, label="Fitted by Gaussian mixture model")
-            plt.xlim(0, gmm_x[-1])
-            plt.legend(bbox_to_anchor=(1, 1), loc="upper right",
-                       borderaxespad=1)
-        self._cov_hist()
-        plt.xlabel("Per read coverage")
-        plt.ylabel("Probability density")
+            ax.plot(gmm_x, gmm_y, label="Fitted by Gaussian mixture model")
+            ax.set_xlim(0, gmm_x[-1])
+        self._cov_hist(ax)
+        ax.xlabel = "Per read coverage"
+        ax.ylabel = "Probability density"
         if fp:
-            plt.savefig(fp, bbox_inches="tight")
-        plt.close()
+            fig.save(fp)
 
-    def _cov_hist(self):
-        plt.hist(self.df[self.COVERAGE],
-                 alpha=0.2,
-                 bins=np.arange(0, self.mean_main
-                                + 10 * np.sqrt(self.cov_main)
-                                + self.mean_main / 10,
-                                self.mean_main / 10),
-                 color="green", density=True)
+    def _cov_hist(self, ax):
+        ax.hist(self.df[self.COVERAGE],
+                alpha=0.2,
+                bins=np.arange(0, self.mean_main
+                               + 10 * np.sqrt(self.cov_main)
+                               + self.mean_main / 10,
+                               self.mean_main / 10),
+                color="green", density=True)
 
     def _region_analysis(self):
         """Parse coords column -> 5'/3' distances + internal gaps
@@ -336,56 +326,49 @@ class CoverageAnalytics:
 
     def plot_unmapped_frac_terminal(self, fp=None, *, adp5_pos=None,
                                     adp3_pos=None, x_max=145):
-        plt.figure(figsize=(12, 5))
-        ax1 = plt.subplot(1, 2, 1)
+        fig = Figure(width=1200, height=500, ncols=2)
+        ax1, ax2 = fig.axes
         t5l, t3l, _ = self._region_analysis()
-        plt.axes(ax1)
-        plt.hist(t5l, alpha=0.2, bins=np.arange(0, x_max, 5), color="green")
-        plt.xlim(0, x_max)
-        plt.xlabel("Distance from 5' terminal")
-        plt.ylabel("Frequency")
-        _, ymax5 = plt.gca().get_ylim()
-        ax2 = plt.subplot(1, 2, 2)
-        plt.axes(ax2)
-        plt.hist(t3l, alpha=0.2, bins=np.arange(0, x_max, 5), color="orange")
-        plt.xlim(x_max, 0)
-        plt.xlabel("Distance from 3' terminal")
-        plt.ylabel("Frequency")
-        _, ymax3 = plt.gca().get_ylim()
-        ymax = max(ymax5, ymax3)
-        if ymax5 > ymax3:
-            ax2.set_ylim(0, ymax5)
-        else:
-            ax1.set_ylim(0, ymax3)
+        ax1.hist(t5l, alpha=0.2, bins=np.arange(0, x_max, 5),
+                 color="green")
+        ax1.set_xlim(0, x_max)
+        ax1.xlabel = "Distance from 5' terminal"
+        ax1.ylabel = "Frequency"
+        ax2.hist(t3l, alpha=0.2, bins=np.arange(0, x_max, 5),
+                 color="orange")
+        ax2.set_xlim(x_max, 0)
+        ax2.xlabel = "Distance from 3' terminal"
+        ax2.ylabel = "Frequency"
+        ymax = max(ax1.get_ylim()[1], ax2.get_ylim()[1])
+        ax1.set_ylim(0, ymax)
+        ax2.set_ylim(0, ymax)
         if adp5_pos:
-            ax1.axvline(x=adp5_pos, linestyle="dashed", linewidth=2,
-                        color="red", alpha=0.8)
-            ax1.text(adp5_pos, ymax * 0.85, r"Length of the adapter",
-                     horizontalalignment="right" if adp5_pos > 90 else "left")
+            ax1.axvline(adp5_pos, dashed=True, color="red", alpha=0.8)
+            ax1.text(adp5_pos, ymax * 0.85, "Length of the adapter",
+                     anchor="right" if adp5_pos > 90 else "left")
         if adp3_pos:
-            ax2.axvline(x=adp3_pos, linestyle="dashed", linewidth=2,
-                        color="red", alpha=0.8)
-            ax2.text(adp3_pos, ymax * 0.85, r"Length of the adapter",
-                     horizontalalignment="left" if adp3_pos > 90 else "right")
+            ax2.axvline(adp3_pos, dashed=True, color="red", alpha=0.8)
+            ax2.text(adp3_pos, ymax * 0.85, "Length of the adapter",
+                     anchor="left" if adp3_pos > 90 else "right")
         if fp:
-            plt.savefig(fp, bbox_inches="tight")
-        plt.close()
+            fig.save(fp)
 
     def plot_qscore_dist(self, fp=None, *, platform="ont"):
         mid_threshold = 7
-        plt.grid(True)
+        fig = Figure()
+        ax = fig.axes[0]
+        ax.grid(True)
         qv = self.df[self.QV].to_numpy(float)
         cov = self.df[self.COVERAGE].to_numpy(float)
-        plt.boxplot([qv[cov == 0.0], qv[cov != 0.0]])
-        plt.xticks([1, 2], ["Non-sense reads", "Normal reads"])
-        _, ymax = plt.gca().get_ylim()
-        plt.axhspan(0, mid_threshold, facecolor="red", alpha=0.1)
-        plt.axhspan(mid_threshold, ymax, facecolor="green", alpha=0.1)
-        plt.ylim(0, ymax)
-        plt.ylabel("Averaged QV")
+        ax.boxplot([qv[cov == 0.0], qv[cov != 0.0]])
+        ax.xticks = ([1, 2], ["Non-sense reads", "Normal reads"])
+        ymax = ax.get_ylim()[1]
+        ax.axhspan(0, mid_threshold, "red", 0.1)
+        ax.axhspan(mid_threshold, ymax, "green", 0.1)
+        ax.set_ylim(0, ymax)
+        ax.ylabel = "Averaged QV"
         if fp:
-            plt.savefig(fp, bbox_inches="tight")
-        plt.close()
+            fig.save(fp)
 
     def plot_length_vs_coverage(self, fp=None, *, interval=3000.0):
         df = self.df
@@ -395,46 +378,40 @@ class CoverageAnalytics:
             df[self.T1_COVERAGE]
         df["Binned read length"] = np.floor(
             df[self.QLENGTH].to_numpy(float) / interval)
-        if df["Binned read length"].max() < 5:
-            df.boxplot(column="MERGED_COVERAGE", by="Binned read length",
-                       sym="+", rot=90)
-        else:
-            df.boxplot(column="MERGED_COVERAGE", by="Binned read length",
-                       sym="+", rot=90,
-                       figsize=(2 * int(max(df["Binned read length"])
-                                        / 5 + 0.5), 4.8))
+        n_bins = int(df["Binned read length"].max())
+        fig = Figure(width=max(640, 60 * (n_bins + 1)))
+        ax = fig.axes[0]
+        ids = np.unique(df["Binned read length"].to_numpy(float))
+        mc = df["MERGED_COVERAGE"].to_numpy(float)
+        bl = df["Binned read length"].to_numpy(float)
+        ax.boxplot([mc[bl == b] for b in ids])
+        ax.xticks = (np.arange(1, len(ids) + 1),
+                     [str(int(b * interval)) for b in ids])
         bin_size = df.groupby("Binned read length").size()
         reliable = np.where(bin_size >= self.LENGTH_BIN_THRESHOLD)[0]
-        xmin, xmax = plt.gca().get_xlim()
+        xmin, xmax = ax.get_xlim()
         if reliable.size > 0:
             dmin, dmax = reliable.min(), reliable.max()
             if dmax < xmax:
-                plt.axvspan(dmax + 1.5, xmax + 1, facecolor="gray",
-                            alpha=0.1)
+                ax.axvspan(dmax + 1.5, xmax + 1, "gray", 0.1)
             if dmin > xmin:
-                plt.axvspan(xmin - 1, dmin + 1.5, facecolor="gray",
-                            alpha=0.1)
+                ax.axvspan(xmin - 1, dmin + 1.5, "gray", 0.1)
         else:
-            plt.axvspan(xmin - 1, xmax + 1, facecolor="gray", alpha=0.1)
-        plt.xlim(xmin, xmax)
-        plt.title("Read coverage over different length reads")
-        plt.xticks(np.arange(xmax + 1),
-                   [int(i) for i in np.arange(xmax + 1) * interval])
-        plt.ylim(0, self.mean_main + 20 * np.sqrt(self.cov_main))
-        plt.ylabel("per-read coverage")
-        plt.suptitle("")
+            ax.axvspan(xmin - 1, xmax + 1, "gray", 0.1)
+        ax.title = "Read coverage over different length reads"
+        ax.set_ylim(0, self.mean_main + 20 * np.sqrt(self.cov_main))
+        ax.ylabel = "per-read coverage"
         if (not self.min_lambda and not self.max_lambda
                 and self.mix_model is None):
             yc = self.get_mean() - 3 * self.get_sd()
-            plt.axhline(y=yc, color="royalblue", alpha=0.4, lw=1)
-            plt.text(0, yc, r"3$\sigma$", color="royalblue")
+            ax.axhline(yc, color="royalblue", alpha=0.4)
+            ax.text(xmin, yc, "3 sigma", color="royalblue")
             yc = self.get_mean() + 3 * self.get_sd()
-            plt.axhline(y=yc, color="royalblue", alpha=0.4, lw=1)
-            plt.text(0, yc, r"3$\sigma$", color="royalblue")
+            ax.axhline(yc, color="royalblue", alpha=0.4)
+            ax.text(xmin, yc, "3 sigma", color="royalblue")
             self._check_outlier_coverage()
         if fp:
-            plt.savefig(fp, bbox_inches="tight", transparent=True)
-        plt.close()
+            fig.save(fp)
 
     def _check_outlier_coverage(self):
         stats = self.df.groupby("Binned read length")[self.COVERAGE].agg(

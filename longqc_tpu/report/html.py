@@ -20,7 +20,7 @@ TEMPLATE = Template("""<!DOCTYPE html>
 <html lang="en">
 <head>
 <meta charset="utf-8">
-<title>LongQC-TPU sample QC report{{ suffix }}</title>
+<title>LongQC sample QC report{{ suffix }}</title>
 <style>
  body { font-family: -apple-system, "Segoe UI", Helvetica, sans-serif;
         margin: 0; color: #222; background: #f6f7f9; }
@@ -49,7 +49,7 @@ TEMPLATE = Template("""<!DOCTYPE html>
 </style>
 </head>
 <body>
-<header><h1>LongQC-TPU &mdash; sample QC report{{ suffix }}</h1></header>
+<header><h1>LongQC &mdash; sample QC report{{ suffix }}</h1></header>
 <div class="layout">
 <nav>
  <a href="#stats">General statistics</a>

@@ -11,7 +11,7 @@ import pytest
 
 from longqc_tpu.engine import device_index as di
 from longqc_tpu.engine import overlap_host as oh
-from longqc_tpu.ops.ringprop import INF32
+from longqc_tpu.ops.chain_ring import INF32
 
 import jax.numpy as jnp
 

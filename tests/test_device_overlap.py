@@ -1,6 +1,6 @@
 """Row identity of the device-resident overlap engine vs the host spec
-(Pallas kernels in interpret mode on the CPU test platform; the same
-compiled programs run on TPU)."""
+(on the CPU the chain passes run as their plain forms; chip_smoke.py
+checks the GPU kernels against the same spec)."""
 
 import numpy as np
 import pytest
@@ -87,7 +87,7 @@ def test_geom_ok_exact_f64_semantics():
                         max_skip=1, min_cnt=1, min_sc=1, min_sc_m=1,
                         min_sc_g=1, max_overhang=1, min_cov=1, covt=1,
                         ava=False, p_hi=p_hi, p_lo=p_lo, p_s=p_s,
-                        interpret=True)
+                        chain="scan")
         tot = np.concatenate([
             rng.randint(1, 1 << 30, size=3000),
             np.arange(1, 2000) * 5,          # exact-boundary stress

@@ -1,11 +1,11 @@
-"""Fused Pallas extension kernel vs the full-DP host oracle and the
-lax.scan formulation (extz single-gap and extd dual-gap semantics)."""
+"""ksw2-class extension (ops/extend.extz_batch, plain lax) vs the
+full-DP host oracle extz_host: extz single-gap and extd dual-gap
+semantics, every output the oracle reports, with and without z-drop."""
 
 import numpy as np
 
 from longqc_tpu.ops.adapter import encode
 from longqc_tpu.ops.extend import extz_batch, extz_host
-from longqc_tpu.ops.extend_pallas import extz_batch_pallas
 
 from test_extend import _mutate
 
@@ -52,22 +52,21 @@ def _check_vs_host(res, pairs, W, **gap):
             assert int(res["mqe"][b]) == want["mqe"], b
 
 
-def test_extz_pallas_matches_host():
+def test_extz_batch_matches_host():
     rng = np.random.RandomState(11)
     B, Lq, Lt, W = 10, 192, 192, 32
     qs, qlens, ts, tlens, pairs = _make_pairs(rng, B, Lq, Lt)
-    res = extz_batch_pallas(qs, qlens, ts, tlens, W=W, interpret=True)
+    res = extz_batch(qs, qlens, ts, tlens, W=W, Lq=Lq, Lt=Lt)
     _check_vs_host(res, pairs, W)
 
 
-def test_extd_pallas_matches_host():
+def test_extd_batch_matches_host():
     """Dual-gap (ksw_extd) scoring, minimap2 default long-gap params."""
     rng = np.random.RandomState(12)
     B, Lq, Lt, W = 10, 192, 192, 48
     gap = dict(gapo2=24, gape2=1)
     qs, qlens, ts, tlens, pairs = _make_pairs(rng, B, Lq, Lt)
-    res = extz_batch_pallas(qs, qlens, ts, tlens, W=W, interpret=True,
-                            **gap)
+    res = extz_batch(qs, qlens, ts, tlens, W=W, Lq=Lq, Lt=Lt, **gap)
     _check_vs_host(res, pairs, W, **gap)
 
 
@@ -84,18 +83,16 @@ def test_extd_scan_matches_host():
         assert int(np.asarray(res["max_t"])[b]) == want["max_t"], b
 
 
-def test_pallas_matches_scan_full_outputs():
-    """All eight outputs (incl. mte and zdrop flags) are identical
-    between the Pallas kernel and the validated lax.scan formulation."""
+def test_extz_batch_full_outputs_with_zdrop():
+    """Every output the oracle reports (incl. mqe_t, mte and mte_q)
+    matches under an aggressive z-drop, which cuts the unrelated
+    pairs' extension short."""
     rng = np.random.RandomState(14)
     B, Lq, Lt, W = 16, 224, 224, 63
-    qs, qlens, ts, tlens, _ = _make_pairs(rng, B, Lq, Lt)
-    want = extz_batch(qs, qlens, ts, tlens, W=W, Lq=Lq, Lt=Lt,
-                      zdrop=100)
-    got = extz_batch_pallas(qs, qlens, ts, tlens, W=W, zdrop=100,
-                            interpret=True)
-    for key in ("max", "max_q", "max_t", "mqe", "mqe_t", "mte", "mte_q"):
-        np.testing.assert_array_equal(np.asarray(want[key]), got[key],
-                                      err_msg=key)
-    np.testing.assert_array_equal(np.asarray(want["zdropped"]),
-                                  got["zdropped"])
+    qs, qlens, ts, tlens, pairs = _make_pairs(rng, B, Lq, Lt)
+    got = extz_batch(qs, qlens, ts, tlens, W=W, Lq=Lq, Lt=Lt, zdrop=100)
+    for b, (qc, tc) in enumerate(pairs):
+        want = extz_host(qc, tc, w=W, zdrop=100)
+        for key in ("max", "max_q", "max_t", "mqe", "mqe_t", "mte",
+                    "mte_q"):
+            assert int(np.asarray(got[key])[b]) == want[key], (b, key)

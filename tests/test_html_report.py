@@ -77,7 +77,7 @@ def test_all_stats_rows_render(tmp_path):
         for k, v in root[sub]["stats"].items():
             assert k in html, k
             assert str(v) in html, (k, v)
-    assert "LongQC-TPU" in html and " - s1" in html
+    assert "LongQC sample QC report" in html and " - s1" in html
 
 
 def test_all_figures_embedded(tmp_path):

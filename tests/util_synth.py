@@ -63,12 +63,13 @@ def write_fasta_file(path, reads):
             f.write(">%s\n%s\n" % (r[0], r[1]))
 
 def sample_reads_fast(rng, genome, n_reads, min_len=800, max_len=3000,
-                      err=0.1, rev_frac=0.5, junk_frac=0.0):
+                      err=0.1, rev_frac=0.5, junk_frac=0.0, lengths=None):
     """Vectorized read simulator for the 100+ Mbp bench scales (the
     per-character sample_reads costs ~20 s per sampled Mread). Same
     read model — substitution/deletion/insertion at err*[0.5/0.25/
     0.25], junk reads, reverse complements — different variate
-    stream, so it defines its own scale points."""
+    stream, so it defines its own scale points. lengths: optional
+    per-read template lengths (else uniform in [min_len, max_len))."""
     g = np.frombuffer(genome.encode("ascii"), np.uint8)
     comp = np.zeros(256, np.uint8)
     for a, b in zip(b"ACGTN", b"TGCAN"):
@@ -76,7 +77,8 @@ def sample_reads_fast(rng, genome, n_reads, min_len=800, max_len=3000,
     basesb = np.frombuffer(b"ACGT", np.uint8)
     reads = []
     for i in range(n_reads):
-        ln = rng.randint(min_len, max_len)
+        ln = (int(lengths[i]) if lengths is not None
+              else rng.randint(min_len, max_len))
         if rng.random_sample() < junk_frac:
             seq = basesb[rng.randint(0, 4, ln)]
         else:
